@@ -105,9 +105,9 @@ def measure(scene, start, direction, chunk=2048):
 
 
 def main() -> None:
-    import jax
+    from cbtr_tpu.utils import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from cbtr_tpu.models import (

@@ -5,7 +5,7 @@ Launches N jax.distributed processes on this machine (each exposing 2
 virtual CPU devices, standing in for one host's chips), renders the sphere
 lens with rays sharded across ALL processes' devices via
 `parallel.multihost`, and verifies every process converged to the same
-replicated image.  The same code launches on a real TPU pod: one process
+replicated image.  The same code launches across real hosts: one process
 per host, `init_distributed()` picking up the cluster env.
 
 Usage:

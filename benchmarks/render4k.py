@@ -1,25 +1,21 @@
 #!/usr/bin/env python
-"""BASELINE config 5's deliverable, as far as one chip allows: a 4K render.
+"""BASELINE config 5's deliverable: a 4K render with rays sharded.
 
-"multi-host pod render: 4K image, rays sharded" (the pod-scale
-generalization of the reference's GPU batching plan,
-reference/README.md:159-198).  This environment has ONE real TPU chip and
-no second host, so the artifact is produced in two halves that together
-exercise every piece of the path:
+"multi-host render: 4K image, rays sharded" (the generalization of the
+reference's GPU batching plan, reference/README.md:159-198), in two halves
+that together exercise every piece of the path:
 
-* --tpu: 4096 x 4096 rays (16.8M) through the robot lens on the real chip
-  via parallel.multihost (mesh of 1; the SAME code runs on a pod), rays
-  chunked, landing in a 1024^2 irradiance image.  Writes wall time, rays/s,
-  and an image checksum to RENDER4K_r03.json.  Run twice for a determinism
-  check.
+* --gpu: 4096 x 4096 rays (16.8M) through the robot lens on every GPU of
+  this host via parallel.multihost (the same code runs across hosts), rays
+  chunked to the device memory, landing in a 1024^2 irradiance image.
+  Prints (and with --out writes) wall time, rays/s and an image checksum.
 * --procs 2: the identical sharded-render code across 2 real
-  jax.distributed processes (2 virtual CPU devices each) at a reduced ray
-  grid (CPU sweep throughput caps what is feasible), asserting the
-  replicated image equals the single-process render bit-for-float — the
-  cross-process agreement half.
+  jax.distributed processes (2 virtual CPU devices each, JAX_PLATFORMS=cpu)
+  at a reduced ray grid, asserting the replicated image equals the
+  single-process render bit-for-float — the cross-process agreement half.
 
 Usage:
-  python benchmarks/render4k.py --tpu --out RENDER4K_r03.json
+  python benchmarks/render4k.py --gpu [--out render4k.json]
   python benchmarks/render4k.py --procs 2 --res 256
 """
 from __future__ import annotations
@@ -35,14 +31,16 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_tpu(out: str, res: int, image_res: int, chunk: int) -> None:
-    import jax
+def run_gpu(out: str, res: int, image_res: int, chunk: int) -> None:
+    sys.path.insert(0, REPO)
+    from cbtr_tpu.utils import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
+    import jax
     import numpy as np
 
-    sys.path.insert(0, REPO)
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("render4k --gpu: no GPU found")
     from cbtr_tpu.models import robot_lens_scene
     from cbtr_tpu.models.scenes import scene_ortho_grid
     from cbtr_tpu.parallel.multihost import (
@@ -84,11 +82,10 @@ def run_tpu(out: str, res: int, image_res: int, chunk: int) -> None:
         "n_devices": len(jax.devices()),
     }
 
-    # ---- cross-layout agreement (round-4 verdict weak #6): the SAME ray
-    # multiset in row-major order.  The splat is order-invariant in exact
-    # arithmetic; in f32 the per-pixel accumulation order changes, so
-    # borderline acceptances can flip (r03->r04 moved ~470 of 16.8M rays).
-    # Quantify it instead of leaving it to the diff of two rounds' files.
+    # ---- cross-layout agreement: the SAME ray multiset in row-major order.
+    # The splat is order-invariant in exact arithmetic; in f32 the
+    # per-pixel accumulation order changes, so borderline acceptances can
+    # flip.  Quantify it.
     grid_rm = grid._replace(tiled=False)
     img_rm = render(grid_rm)  # compile + warm (different layout -> new jit)
     t0 = time.perf_counter()
@@ -106,8 +103,9 @@ def run_tpu(out: str, res: int, image_res: int, chunk: int) -> None:
             np.linalg.norm(img_rm - img) / max(np.linalg.norm(img), 1e-30)
         ),
     }
-    with open(out, "w") as f:
-        json.dump(record, f, indent=1)
+    if out:
+        with open(out, "w") as f:
+            json.dump(record, f, indent=1)
     print(json.dumps(record))
 
 
@@ -117,7 +115,7 @@ def run_procs(nproc: int, res: int) -> None:
     for f in (f"{out}.proc{i}.npz" for i in range(nproc)):
         if os.path.exists(f):
             os.remove(f)
-    env = dict(os.environ)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     rc = subprocess.call(
         [sys.executable, os.path.join(REPO, "benchmarks/multiprocess_render.py"),
@@ -141,19 +139,16 @@ def run_procs(nproc: int, res: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--procs", type=int, default=0)
     ap.add_argument("--res", type=int, default=4096)
     ap.add_argument("--image-res", type=int, default=1024)
-    # 0 = let intersect_rays auto-chunk at pallas_sweep.safe_ray_cap (a
-    # hand-picked chunk can overflow the scalar-prefetch SMEM budget when
-    # the kernel block size changes — 1M rays x 32 blocks OOMed at 1.03M
-    # of the 1.00M SMEM after the block-16 tuning)
+    # 0 = let intersect_rays derive the chunk from the device memory
     ap.add_argument("--chunk", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join(REPO, "RENDER4K_r03.json"))
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
-    if args.tpu:
-        run_tpu(args.out, args.res, args.image_res, args.chunk)
+    if args.gpu:
+        run_gpu(args.out, args.res, args.image_res, args.chunk)
     if args.procs:
         run_procs(args.procs, min(args.res, 256))
 

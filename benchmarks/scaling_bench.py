@@ -2,16 +2,17 @@
 """Ray-sharded scaling benchmark: rays/s (fwd+bwd train step) at 1..N devices.
 
 Measures the data-parallel scaling the north star demands (>=90% efficiency
-from 1 chip to N) by jitting the full train step over meshes of growing
-device count and timing steady-state steps.  On this image the devices are
-virtual CPU devices (XLA_FLAGS=--xla_force_host_platform_device_count) or
-the one real TPU chip; the same harness runs unchanged on a pod where
-`jax.devices()` spans hosts.
+from 1 device to N) by jitting the full train step over meshes of growing
+device count and timing steady-state steps.  The devices are the GPUs of
+this host, or virtual CPU devices
+(XLA_FLAGS=--xla_force_host_platform_device_count) for a dry run; the same
+harness runs unchanged where `jax.devices()` spans hosts.
 
-Writes a JSON artifact: per-device-count rays/s and efficiency vs 1 device.
+Prints (and with --out writes) a JSON artifact: per-device-count rays/s and
+efficiency vs 1 device.
 
 Usage: python benchmarks/scaling_bench.py [--res 256] [--iters 5]
-       [--out SCALING.json] [--devices 1,2,4,8]
+       [--out scaling.json] [--devices 1,2,4,8]
 """
 from __future__ import annotations
 
@@ -114,9 +115,9 @@ def main() -> None:
         ) if on_cpu else "",
         "results": results,
     }
-    out = args.out or os.path.join(REPO, "SCALING.json")
-    with open(out, "w") as fh:
-        json.dump(artifact, fh, indent=1)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(artifact, fh, indent=1)
     print(json.dumps(artifact))
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""3x3-solve strategy microbenchmark — the TPU analogue of
+"""3x3-solve strategy microbenchmark — the JAX analogue of
 reference/solve3x3.cpp (which justified inverse-then-multiply over LU:
 0.0202 s vs 0.2030 s per 1M solves on CPU, solve3x3.cpp:5-13).
 

@@ -1,22 +1,23 @@
 #!/usr/bin/env python
 """Config-5's TRAINING half at scale: a 4K sharded train step.
 
-RENDER4K is forward-only; the north-star sentence is "grad allreduce
-overlapped with backward", so this artifact runs ONE full fwd+bwd SGD step
-at 4096x4096 rays (16.8M) through `make_multihost_train_step_ortho` on the
-real chip — rays synthesized on device, intersect auto-chunked, gradients
-psum-reduced by XLA — and records wall time, rays/s, and a deterministic
-checksum of (loss, control-point grads, refractive-index grad).
+render4k.py is forward-only; this runs ONE full fwd+bwd SGD step at
+4096x4096 rays (16.8M) through `make_multihost_train_step_ortho` on every
+GPU of this host — rays synthesized on device, intersect chunked to the
+device memory, gradients psum-reduced — and records wall time, rays/s, and
+a deterministic checksum of (loss, control-point grads, refractive-index
+grad).
 
-Two halves, like render4k.py (one chip + no second host here):
-* --tpu: the 4K step on the real chip, run twice for determinism;
-  writes TRAIN4K_r04.json.
+Two halves, like render4k.py:
+* --gpu: the 4K step on the GPUs, run twice for determinism (with --out,
+  also written to that file).
 * --procs 2: the identical ortho train-step code across 2 real
-  jax.distributed CPU processes at reduced resolution, asserting
-  bit-identical post-step params (via multiprocess_render.py --train-ortho).
+  jax.distributed CPU processes (JAX_PLATFORMS=cpu) at reduced resolution,
+  asserting bit-identical post-step params (via multiprocess_render.py
+  --train-ortho).
 
 Usage:
-  python benchmarks/train4k.py --tpu --out TRAIN4K_r04.json
+  python benchmarks/train4k.py --gpu [--out train4k.json]
   python benchmarks/train4k.py --procs 2 --res 64
 """
 from __future__ import annotations
@@ -32,15 +33,16 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_tpu(out: str, res: int, image_res: int) -> None:
-    import jax
+def run_gpu(out: str, res: int, image_res: int) -> None:
+    sys.path.insert(0, REPO)
+    from cbtr_tpu.utils import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
+    import jax
     import numpy as np
 
-    sys.path.insert(0, REPO)
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("train4k --gpu: no GPU found")
     import jax.numpy as jnp
 
     from cbtr_tpu.models import robot_lens_scene
@@ -95,8 +97,9 @@ def run_tpu(out: str, res: int, image_res: int) -> None:
         "n_devices": len(jax.devices()),
     }
     assert np.isfinite(float(loss)) and np.isfinite(gnorm) and gnorm > 0
-    with open(out, "w") as f:
-        json.dump(record, f, indent=1)
+    if out:
+        with open(out, "w") as f:
+            json.dump(record, f, indent=1)
     print(json.dumps(record))
 
 
@@ -106,7 +109,7 @@ def run_procs(nproc: int, res: int) -> None:
         f = f"{out}.proc{i}.npz"
         if os.path.exists(f):
             os.remove(f)
-    env = dict(os.environ)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     rc = subprocess.call(
         [sys.executable,
@@ -134,14 +137,14 @@ def run_procs(nproc: int, res: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--procs", type=int, default=0)
     ap.add_argument("--res", type=int, default=4096)
     ap.add_argument("--image-res", type=int, default=128)
-    ap.add_argument("--out", default=os.path.join(REPO, "TRAIN4K_r04.json"))
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
-    if args.tpu:
-        run_tpu(args.out, args.res, args.image_res)
+    if args.gpu:
+        run_gpu(args.out, args.res, args.image_res)
     if args.procs:
         run_procs(args.procs, min(args.res, 64))
 

@@ -1,4 +1,4 @@
-"""cbtr_tpu — a TPU-native differentiable Bézier-triangle raytracer.
+"""cbtr_tpu — a differentiable Bézier-triangle raytracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 `balazs-bamer/cuda-bezier-triangle-raytracer`: closed-triangle-mesh

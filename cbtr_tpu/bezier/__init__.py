@@ -1,6 +1,6 @@
 """Cubic Bezier-triangle surface layer (L3).
 
-TPU-native redesign of the reference's BezierTriangle/BezierMesh classes
+Array-native redesign of the reference's BezierTriangle/BezierMesh classes
 (reference/bezierTriangle.{h,cpp}, reference/bezierMesh.{h,cpp}): instead of
 an object per patch, the whole surface is one struct-of-arrays pytree
 (`BezierPatches`) built by four bulk-synchronous vectorized passes and

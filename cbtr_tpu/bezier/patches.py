@@ -2,7 +2,7 @@
 
 The per-patch state mirrors the reference's BezierTriangle members
 (reference/bezierTriangle.h:64-80) laid out as flat device arrays so every
-operation is a batched VPU/MXU contraction instead of a per-object method:
+operation is a batched array contraction instead of a per-object method:
 
 - ``control_points [P,10,3]`` -- cubic control net, index scheme
   300/030/003/210/120/021/012/102/201/111 (reference/bezierTriangle.h:29-51)
@@ -58,11 +58,9 @@ class BezierPatches(NamedTuple):
         """All float leaves flattened into one row-major [P, 60] table.
 
         One `jnp.take` on this table replaces six separate per-leaf gathers
-        (and, under `jax.grad`, six backward scatter-adds with ONE) — on TPU
-        the per-gather overhead dominates at recompute sizes: measured on the
-        robot bench shape (65,536 winner rows), per-leaf gathers cost 5.0 ms
-        where the packed gather is ~0.7 ms, and the full recompute-with-grad
-        drops 21.8 -> 4.8 ms.  Column layout is consumed by `from_packed_f32`.
+        (and, under `jax.grad`, six backward scatter-adds with ONE): at
+        recompute sizes the per-gather overhead dominates.  Column layout is
+        consumed by `from_packed_f32`.
         """
         P = self.num_patches
         return jnp.concatenate(
@@ -101,8 +99,8 @@ def bernstein_weights(bary):
 
     bary [..., 3] -> [..., 10]; the contraction ``w @ control_points``
     reproduces BezierTriangle::interpolate (reference/bezierTriangle.cpp:105-121).
-    `interpolate` deliberately contracts with an unrolled elementwise VPU sum
-    rather than the MXU — see its docstring for the measured rationale.
+    `interpolate` deliberately contracts with an unrolled elementwise sum
+    rather than a matmul — see its docstring for the rationale.
     """
     b0, b1, b2 = bary[..., 0], bary[..., 1], bary[..., 2]
     b0_2, b1_2, b2_2 = b0 * b0, b1 * b1, b2 * b2
@@ -127,10 +125,10 @@ def interpolate(control_points, bary):
     """Evaluate the cubic surface point. cp [...,10,3], bary [...,3] -> [...,3].
 
     Unrolled multiply-add rather than einsum: the contraction dim is 10, so
-    the MXU form pads 10->128 lanes and (at the HIGHEST precision full f32
-    requires) runs multi-pass, while the unrolled form is bit-identical full
-    f32 *and* fuses into the surrounding elementwise DAG — the recompute
-    stage drops from ~12 ms to the bandwidth floor.
+    a matmul form pads it onto the matrix units and (at the HIGHEST
+    precision full f32 requires) runs multi-pass, while the unrolled form is
+    full f32 under any matmul precision *and* fuses into the surrounding
+    elementwise DAG.
     """
     w = bernstein_weights(bary)
     return jnp.sum(w[..., None] * control_points, axis=-2)

@@ -1,4 +1,4 @@
-"""TPU-native analogues of the reference's remaining manual-test drivers
+"""Batched analogues of the reference's remaining manual-test drivers
 (reference/test.cpp:100-235, 464-494).
 
 Each driver returns structured data so tests can *assert* what the

@@ -94,3 +94,19 @@ def measure_approximation(
     num = np.sum((vertices - ethalon) ** 2, axis=-1)
     den = np.sum(ethalon**2, axis=-1)
     return float(np.mean(num / den))
+
+
+def winner_agreement(ref, got, tol: float = 1e-4) -> dict:
+    """Agreement of two per-ray winner results (any_hit, win, distance), as
+    returned by select_candidates or the sweep kernel.
+
+    hit_set: share of rays whose hit/miss agrees.  winner: share of rays
+    that agree fully: both miss, or both hit the same patch at distances
+    within tol (relative and absolute)."""
+    ah_r, win_r, d_r = (np.asarray(x) for x in ref)
+    ah_g, win_g, d_g = (np.asarray(x) for x in got)
+    close = np.abs(d_r - d_g) <= tol * (1.0 + np.abs(d_r))
+    agree = np.where(ah_r, ah_g & (win_r == win_g) & close, ~ah_g)
+    return {"rays": int(ah_r.size), "hits": int(ah_r.sum()),
+            "hit_set": float(np.mean(ah_r == ah_g)),
+            "winner": float(np.mean(agree))}

@@ -5,7 +5,7 @@ NumPy struct-of-arrays: the mesh is an [F, 3, 3] float32 triangle soup plus
 derived topology tables.  The irregular, hash/graph-heavy preprocessing
 (vertex welding, neighbour topology, flood-fill normal orientation) stays on
 host exactly where the reference keeps it; its outputs are the flat device
-arrays the TPU Bézier/intersection kernels consume.
+arrays the Bézier/intersection kernels consume.
 
 Pipeline parity (see SURVEY.md §3.1):
   standardize_vertices  <- mesh.cpp:72-91  (interval weld)
@@ -351,7 +351,7 @@ class TriMesh:
 
     # -- device export -------------------------------------------------------
     def device_arrays(self) -> Dict[str, np.ndarray]:
-        """Flat arrays consumed by the TPU Bézier construction pass."""
+        """Flat arrays consumed by the Bézier construction pass."""
         assert self.fellow_triangles is not None, "run standardize_normals() first"
         if self.corner_average_normals is not None:
             corner_avg_normals = self.corner_average_normals

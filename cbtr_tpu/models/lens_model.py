@@ -36,11 +36,12 @@ def params_from_scene(scene) -> LensParams:
 
 def lens_forward(params: LensParams, patches, start, direction, screen_plane,
                  resolution: int = 128, extent: float = 4.0,
-                 chunk_size: int = 0, ray_weights=None):
+                 chunk_size: int = 0, ray_weights=None, intersect_fn=None):
     """Irradiance image for the current lens parameters.
 
     ray_weights: optional per-ray multiplier; 0 removes a ray (shard-padding
-    masks, emitter importance)."""
+    masks, emitter importance).  intersect_fn: optional intersection in
+    place of intersect_rays (render_lens_image)."""
     p = patches._replace(control_points=params.control_points)
     return render_lens_image(
         p,
@@ -52,34 +53,38 @@ def lens_forward(params: LensParams, patches, start, direction, screen_plane,
         resolution=resolution,
         chunk_size=chunk_size,
         weights=ray_weights,
+        intersect_fn=intersect_fn,
     )
 
 
 def lens_loss(params: LensParams, patches, start, direction, screen_plane,
               target, resolution: int = 128, extent: float = 4.0,
-              chunk_size: int = 0, ray_weights=None):
+              chunk_size: int = 0, ray_weights=None, intersect_fn=None):
     img = lens_forward(
         params, patches, start, direction, screen_plane,
         resolution=resolution, extent=extent, chunk_size=chunk_size,
-        ray_weights=ray_weights,
+        ray_weights=ray_weights, intersect_fn=intersect_fn,
     )
     return jnp.mean((img - target) ** 2)
 
 
 def make_train_step(patches, screen_plane, target, resolution: int = 128,
                     extent: float = 4.0, learning_rate: float = 1e-3,
-                    chunk_size: int = 0):
+                    chunk_size: int = 0, intersect_fn=None):
     """Jitted SGD step: (params, start, direction) -> (params, loss).
 
     Rays are a *data* argument so the step can be pjit-sharded over a device
     mesh (rays = data axis; params replicated; XLA all-reduces the gradient
-    contributions over the ray shards automatically).
+    contributions over the ray shards automatically).  intersect_fn: see
+    render_lens_image (e.g. intersect_rays with backend="xla" as the
+    reference step).
     """
 
     def loss_fn(params, start, direction):
         return lens_loss(
             params, patches, start, direction, screen_plane, target,
             resolution=resolution, extent=extent, chunk_size=chunk_size,
+            intersect_fn=intersect_fn,
         )
 
     @jax.jit

@@ -2,8 +2,7 @@
 
 To cut per-chip compute (the brute-force scan is O(rays x patches)), the
 *patch* axis is sharded across a mesh axis: every device sweeps the ray
-batch against its own patch shard (the expensive stage — Pallas kernel on
-TPU), then the per-pair candidate codes+distances (8 bytes/pair) are
+batch against its own patch shard (the expensive stage), then the per-pair candidate codes+distances (8 bytes/pair) are
 all-gathered along the patch axis so every device can run the cheap integer
 select stage — including follow-side retries that cross shard boundaries
 (reference/bezierMesh.cpp:213-217, the neighbour patch may live on another
@@ -53,9 +52,8 @@ def pad_patches(patches: BezierPatches, multiple: int) -> BezierPatches:
 
 
 @functools.lru_cache(maxsize=64)
-def _build_shard_fn(mesh: Mesh, patch_axis: str, ray_axis: Optional[str],
-                    backend: str):
-    """Cached jitted shard_map body, keyed on (mesh, axes, backend).
+def _build_shard_fn(mesh: Mesh, patch_axis: str, ray_axis: Optional[str]):
+    """Cached jitted shard_map body, keyed on (mesh, axes).
 
     Caching matters twice over: an un-jitted shard_map dispatches every
     traced op eagerly across the mesh (~100s/call on an 8-device CPU mesh vs
@@ -77,13 +75,7 @@ def _build_shard_fn(mesh: Mesh, patch_axis: str, ray_axis: Optional[str],
     def shard_fn(local_patches, full_patches, s, d):
         # stage 1: local sweep (stop-gradient; the heavy stage)
         sg = jax.lax.stop_gradient
-        lp, s_sg, d_sg = sg(local_patches), sg(s), sg(d)
-        if backend == "pallas":
-            from ..ops.pallas_sweep import sweep_codes_pallas
-
-            code, dist = sweep_codes_pallas(lp, s_sg, d_sg)
-        else:
-            code, dist = sweep_codes_xla(lp, s_sg, d_sg)
+        code, dist = sweep_codes_xla(sg(local_patches), sg(s), sg(d))
 
         # stage 2: all-gather per-pair scalars along the patch axis so the
         # select stage sees the whole table (cross-shard retries included)
@@ -101,19 +93,14 @@ def _build_shard_fn(mesh: Mesh, patch_axis: str, ray_axis: Optional[str],
 
 def intersect_rays_patch_sharded(patches: BezierPatches, start, direction,
                                  mesh: Mesh, patch_axis: str = "patches",
-                                 ray_axis: Optional[str] = None,
-                                 backend: str = "auto") -> RayHit:
+                                 ray_axis: Optional[str] = None) -> RayHit:
     """Mesh-sharded intersection: patches split along `patch_axis`, rays
-    optionally split along `ray_axis` (2D mesh)."""
+    optionally split along `ray_axis` (2D mesh).  The local sweep is the
+    staged XLA form: its per-pair codes are what the all-gather moves."""
     n_shards = mesh.shape[patch_axis]
     patches = pad_patches(patches, n_shards)
 
-    if backend == "auto":
-        from ..ops.intersect import _use_pallas
-
-        backend = "pallas" if _use_pallas() else "xla"
-
-    shard_fn = _build_shard_fn(mesh, patch_axis, ray_axis, backend)
+    shard_fn = _build_shard_fn(mesh, patch_axis, ray_axis)
     return shard_fn(
         patches, patches,
         start.astype(jnp.float32), direction.astype(jnp.float32),

@@ -1,11 +1,11 @@
-"""Ray-coherence sorting: the TPU analogue of the reference's warp-coherence
+"""Ray-coherence sorting: the analogue of the reference's warp-coherence
 emitter binning (reference/README.md:169-192, hostUtil.cpp:9-28).
 
 The reference's GPU plan groups rays so one kernel launch processes rays
-that hit similar geometry.  On TPU there is no warp-divergence penalty, but
-the Pallas sweep's bounding-sphere tile cull (ops/pallas_sweep.py) skips a
-(8-patch x 128-ray) tile only when *all 128 rays* miss all 8 patch spheres —
-so spatially coherent ray *tiles* skip far more work.  This module provides
+that hit similar geometry.  The sweep kernel's cull (ops/pallas_sweep.py)
+drops a patch block from a 128-ray tile only when *all 128 rays* miss its
+bounds, and evaluates a patch only when some ray of the tile hits its
+sphere — so spatially coherent ray *tiles* skip far more work.  This module provides
 the sort/unsort pass that manufactures that coherence for arbitrarily
 ordered rays (emitter-sampled bundles, shuffled batches):
 

@@ -1,6 +1,6 @@
 """Differentiable image formation.
 
-The reference stops at STL dumps inspected in Blender; the TPU build's
+The reference stops at STL dumps inspected in Blender; this build's
 first-class product is an *image*: rays refract through the lens
 (reference/test.cpp:330-427 state machine), land on a screen plane, and are
 splatted bilinearly into an irradiance image.  The splat keeps the whole
@@ -32,8 +32,8 @@ def screen_hits(start, direction, screen_plane):
     return hit2d, valid
 
 
-# Use the MXU (outer-product) splat while the two [N, res] axis-weight
-# matrices fit comfortably in HBM; above that (e.g. the 4K render's
+# Use the matmul (outer-product) splat while the two [N, res] axis-weight
+# matrices fit comfortably in device memory; above that (e.g. the 4K render's
 # 16.8M rays x 1024px image) fall back to scatter-adds.
 _SPLAT_MATMUL_MAX_BYTES = 1_200_000_000
 
@@ -59,13 +59,12 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
 
     Two formulations with identical math (f32-rounding-level agreement):
 
-    * **MXU outer-product** (default): the bilinear footprint is separable,
-      img[i,j] = sum_r w_r * wx_r[i] * wy_r[j], i.e. one [res,N]@[N,res]
-      matmul of per-axis one-hot weight matrices.  Profiling the headline
-      train step showed the scatter formulation cost 9.0 ms forward
-      (4 scatter-adds) + 8.3 ms backward (4 gathers) at 262144 rays — the
-      largest non-sweep item; the matmul runs the same math on the MXU in
-      ~1 ms each way and its transpose is again a matmul.
+    * **matmul outer-product** (default): the bilinear footprint is
+      separable, img[i,j] = sum_r w_r * wx_r[i] * wy_r[j], i.e. one
+      [res,N]@[N,res] matmul of per-axis weight matrices, whose transpose
+      is again a matmul (the scatter form costs 4 scatter-adds forward and
+      4 gathers backward).  It runs at HIGHEST precision: the weights are
+      fractional, and the GPU would otherwise round them to TF32.
     * **scatter-add** fallback when the [N, res] weight matrices would
       exceed ~1.2 GB (huge renders, e.g. 16.8M rays -> 1024^2).
     """
@@ -77,7 +76,8 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
         ax = _splat_axis_weights(xy[:, 0], res) * weights[:, None]
         ay = _splat_axis_weights(xy[:, 1], res)
         return jnp.einsum(
-            "ri,rj->ij", ax, ay, preferred_element_type=jnp.float32
+            "ri,rj->ij", ax, ay, preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
 
     x0 = jnp.floor(xy)
@@ -99,19 +99,21 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("resolution", "chunk_size")
+    jax.jit, static_argnames=("resolution", "chunk_size", "intersect_fn")
 )
 def render_lens_image(patches, refractive_index, start, direction, screen_plane,
                       extent: float = 4.0, resolution: int = 128,
-                      chunk_size: int = 0, weights=None):
+                      chunk_size: int = 0, weights=None, intersect_fn=None):
     """Flagship forward model: collimated/emitted rays -> lens entry/exit
     refraction -> screen splat -> [res, res] irradiance image.
 
     weights: optional per-ray multiplier [...]; 0 removes a ray from the
     image entirely (used to mask shard-padding rays and to carry emitter
-    importance weights)."""
+    importance weights).  intersect_fn: optional (patches, start, direction)
+    -> RayHit in place of intersect_rays (see trace_through_lens)."""
     out_s, out_d, alive, _, _ = trace_through_lens(
-        patches, refractive_index, start, direction, chunk_size=chunk_size
+        patches, refractive_index, start, direction, chunk_size=chunk_size,
+        intersect_fn=intersect_fn,
     )
     hit2d, on_screen = screen_hits(out_s, out_d, screen_plane)
     w = (alive & on_screen).astype(jnp.float32)
@@ -130,10 +132,8 @@ def render_emitter_image(patches, refractive_index, emitter, n_rays: int,
     The emitter's belt/patch bin (reference/hostUtil.cpp:9-13 — designed
     there for GPU warp coherence) is re-purposed as the ray SORT key: rays
     are ordered by bin before tracing so each 128-ray sweep tile sees
-    spatially coherent directions and the kernel's sphere cull can skip
-    (measured on the robot bench shape: emitter rays 21.7 -> 11.8 ms per
-    intersect, tile skip rate 0.45 -> 0.98; BENCH ray_sort row).  The
-    bilinear splat is order-invariant, so no unsort pass is needed.
+    spatially coherent directions and the kernel's cull lists stay short.
+    The bilinear splat is order-invariant, so no unsort pass is needed.
 
     emitter: UniformHemisphere (host-side sampling + binning).
     origin: [3] emitter position; rays head into the +x hemisphere.
@@ -177,7 +177,7 @@ def render_surface_normals(patches, start, direction, light_dir,
     """Surface-inspection render: first-hit Lambertian shading + depth.
 
     Returns (shade [N], depth [N], hit_mask [N]) for a ray batch; the
-    TPU-native replacement for the reference's Blender STL inspection loop.
+    replacement for the reference's Blender STL inspection loop.
     """
     hit = intersect_rays(patches, start, direction, chunk_size=chunk_size)
     ok = hit.what == WHAT_INTERSECT

@@ -5,4 +5,9 @@ from .checkpoint import (  # noqa: F401
     save_params,
     save_patches,
 )
-from .profiling import RateMeter, trace  # noqa: F401
+from .profiling import (  # noqa: F401
+    RateMeter,
+    compile_cache_dir,
+    enable_compile_cache,
+    trace,
+)

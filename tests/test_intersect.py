@@ -303,7 +303,7 @@ def test_recompute_acceptance_check_zero(sphere_scene):
 
 
 def test_select_formulations_agree(monkeypatch):
-    """The MXU-vote (small P) and column-gather (large P) select
+    """The one-hot-vote (small P) and column-gather (large P) select
     formulations produce identical winners on random data."""
     import cbtr_tpu.ops.intersect as I
 
@@ -315,8 +315,8 @@ def test_select_formulations_agree(monkeypatch):
     dist = jnp.asarray(rng.uniform(0.1, 100.0, (R, P)).astype(np.float32))
     neighbours = jnp.asarray(rng.integers(0, P, (P, 3)).astype(np.int32))
 
-    a = I.select_candidates(code, dist, neighbours)  # MXU path (P<=2048)
-    monkeypatch.setattr(I, "_SELECT_MXU_MAX_P", 0)   # force gather path
+    a = I.select_candidates(code, dist, neighbours)  # vote path (P<=2048)
+    monkeypatch.setattr(I, "_SELECT_VOTE_MAX_P", 0)   # force gather path
     b = I.select_candidates(code, dist, neighbours)
     np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
     np.testing.assert_array_equal(np.asarray(a[2]), np.asarray(b[2]))

@@ -135,9 +135,9 @@ def test_gradient_allreduce_in_backward(scene):
     """HLO-level verification of the multihost module's collective claim:
     the compiled SPMD train step must contain all-reduce ops spanning all 8
     devices (the gradient psum XLA inserts for replicated params x sharded
-    rays).  Overlap with backward compute is a TPU latency-hiding-scheduler
-    property we cannot demonstrate single-chip — the docstring claims
-    insertion + placement only (parallel/multihost.py)."""
+    rays).  Overlap with backward compute is a scheduling property this
+    virtual-device mesh cannot show, so only insertion + placement is
+    checked."""
     from cbtr_tpu.parallel.multihost import process_ray_shard
     from cbtr_tpu.models.lens_model import LensParams, lens_loss
 

@@ -14,9 +14,9 @@ from cbtr_tpu.models.lens_model import params_from_scene
 from cbtr_tpu.ops import intersect_rays
 from cbtr_tpu.parallel import (
     intersect_rays_patch_sharded,
-    make_sharded_train_step,
-    ray_device_mesh,
-    render_sharded,
+    make_multihost_train_step,
+    multihost_mesh,
+    render_multihost,
 )
 from cbtr_tpu.render.render import render_lens_image
 
@@ -31,8 +31,8 @@ def test_eight_devices_available():
 
 
 def test_ray_sharded_render_matches_single_device(scene):
-    mesh = ray_device_mesh()
-    img_sharded = render_sharded(
+    mesh = multihost_mesh()
+    img_sharded = render_multihost(
         mesh, scene.patches, scene.refractive_index, scene.start,
         scene.direction, scene.screen_plane, resolution=32,
     )
@@ -79,9 +79,9 @@ def test_2d_mesh_rays_and_patches(scene):
 
 
 def test_sharded_train_step_runs_and_reduces(scene):
-    mesh = ray_device_mesh()
+    mesh = multihost_mesh()
     target = jnp.zeros((32, 32), jnp.float32)
-    step = make_sharded_train_step(
+    step = make_multihost_train_step(
         mesh, scene.patches, scene.screen_plane, target, resolution=32,
         learning_rate=1e-4,
     )
